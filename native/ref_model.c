@@ -1,9 +1,9 @@
 /* ref_model.c — single-core C measurement model of the Rust reference.
  *
  * A faithful port of the reference's serial query path and build pipeline,
- * used to MEASURE the baseline numbers that BENCH_NOTES.md previously only
- * derived (15-40 ns/eval band).  Semantics sources (file:line in
- * /root/reference):
+ * used to measure the host-CPU baseline numbers behind bench.py's
+ * REF_SINGLE_CORE_* constants.  Semantics sources (file:line in the
+ * reference):
  *
  *   - priority_queue.rs:28-199  fixed-capacity sorted (dist,id) queue,
  *     dedup merge with "did_something" change flag

@@ -5,7 +5,7 @@ capacity sorted priority queue (priority_queue.rs:28-199), serial best-first
 ``closest_nodes`` with probe_depth (lib.rs:175-248), per-layer
 ``closest_vectors`` (lib.rs:250-277), and the layer-descent driver
 ``search_layers`` (search.rs:84-140) — used by the recall-parity suite to
-compare the TPU engine against reference semantics on IDENTICAL graphs
+compare the batched engine against reference semantics on IDENTICAL graphs
 (BASELINE.md's "recall@k parity at equal memory on identical graphs" gate).
 
 Only test-scale performance; everything is plain Python/NumPy on purpose so

@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from parallel_hnsw_tpu import (
+from parallel_hnsw import (
     BuildParams,
     DenseSource,
     Hnsw,
@@ -16,7 +16,7 @@ from parallel_hnsw_tpu import (
     OptimizationParams,
     SearchParams,
 )
-from parallel_hnsw_tpu.utils.data import make_random_hnsw, random_unit_corpus
+from parallel_hnsw.utils.data import make_random_hnsw, random_unit_corpus
 
 BP = BuildParams(
     order=6,
@@ -98,8 +98,8 @@ def test_make_random_hnsw():
 
 
 def test_progress_events_and_checkpoint(tmp_path):
-    from parallel_hnsw_tpu import CallbackProgressMonitor
-    from parallel_hnsw_tpu.io import deserialize_hnsw
+    from parallel_hnsw import CallbackProgressMonitor
+    from parallel_hnsw.io import deserialize_hnsw
 
     events = []
     mon = CallbackProgressMonitor(on_update=events.append)
@@ -115,7 +115,7 @@ def test_progress_events_and_checkpoint(tmp_path):
 
 
 def test_cancellation():
-    from parallel_hnsw_tpu import CallbackProgressMonitor, Interrupt
+    from parallel_hnsw import CallbackProgressMonitor, Interrupt
 
     mon = CallbackProgressMonitor(is_cancelled=lambda: True)
     source = random_unit_corpus(80, 8, seed=5)
@@ -129,7 +129,7 @@ def test_custom_source_registration():
 
     import jax
 
-    from parallel_hnsw_tpu.graph import source_get
+    from parallel_hnsw.graph import source_get
 
     class ScaledSource(NamedTuple):
         vectors: jax.Array

@@ -4,18 +4,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from parallel_hnsw_tpu.analysis import first_hit_recall
-from parallel_hnsw_tpu.build import (
+from parallel_hnsw.analysis import first_hit_recall
+from parallel_hnsw.build import (
     calculate_partitions,
     calculate_partitions_from_bottom,
     generate,
     generate_layer,
 )
-from parallel_hnsw_tpu.constants import EMPTY_ID
-from parallel_hnsw_tpu.graph import assert_layer_invariants
-from parallel_hnsw_tpu.ops.distance import Metric
-from parallel_hnsw_tpu.params import BuildParams
-from parallel_hnsw_tpu.utils.data import random_unit_corpus
+from parallel_hnsw.constants import EMPTY_ID
+from parallel_hnsw.graph import assert_layer_invariants
+from parallel_hnsw.ops.distance import Metric
+from parallel_hnsw.params import BuildParams
+from parallel_hnsw.utils.data import random_unit_corpus
 import jax
 
 
@@ -89,8 +89,8 @@ def test_build_deterministic():
 def test_euclidean_build_and_search():
     # reference: test_euclidean (src/lib.rs:2449-2460) at test scale —
     # unnormalized vectors, true L2 metric
-    from parallel_hnsw_tpu.index import Hnsw
-    from parallel_hnsw_tpu.utils.data import random_corpus
+    from parallel_hnsw.index import Hnsw
+    from parallel_hnsw.utils.data import random_corpus
 
     source = random_corpus(800, 32, seed=13)
     bp = BuildParams()

@@ -4,8 +4,9 @@ src/lib.rs:2431-2437)."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from parallel_hnsw_tpu.ops.distance import (
+from parallel_hnsw.ops.distance import (
     Metric,
     batched_distance,
     distance_one,
@@ -44,6 +45,30 @@ def test_euclidean():
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
+@pytest.mark.parametrize(
+    "metric,nq,nc,d",
+    [(m, 70, 130, 32) for m in Metric] + [(Metric.EUCLIDEAN, 1, 3, 7)],
+    ids=[m.value for m in Metric] + ["unaligned-1x7-3x7"],
+)
+def test_pairwise_distance_matches_float64(metric, nq, nc, d):
+    """``pairwise_distance`` at exact precision against NumPy float64, for
+    every metric and an unaligned shape."""
+    x = RNG.normal(size=(nq, d)).astype(np.float32)
+    y = RNG.normal(size=(nc, d)).astype(np.float32)
+    got = np.asarray(pairwise_distance(jnp.asarray(x), jnp.asarray(y), metric))
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    dots = x64 @ y64.T
+    sq = ((x64[:, None, :] - y64[None, :, :]) ** 2).sum(-1)
+    want = {
+        Metric.COSINE: 1.0 - dots,
+        Metric.NORMALIZED_COSINE: (1.0 - dots) / 2.0,
+        Metric.DOT: -dots,
+        Metric.SQUARED_EUCLIDEAN: sq,
+        Metric.EUCLIDEAN: np.sqrt(sq),
+    }[metric]
+    np.testing.assert_allclose(got, want, atol=5e-5, rtol=1e-5)
+
+
 def test_batched_matches_pairwise():
     q = _unit(5, 16)
     cands = _unit(5 * 7, 16).reshape(5, 7, 16)
@@ -79,8 +104,8 @@ def test_fast_flat_knn_matches_exact_scan():
     merges."""
     import jax
 
-    from parallel_hnsw_tpu.analysis import brute_force_knn, fast_flat_knn
-    from parallel_hnsw_tpu.graph import DenseSource
+    from parallel_hnsw.analysis import brute_force_knn, fast_flat_knn
+    from parallel_hnsw.graph import DenseSource
 
     vecs = _unit(500, 32)
     src = DenseSource(vectors=jnp.asarray(vecs))
@@ -96,11 +121,11 @@ def test_fast_flat_knn_matches_exact_scan():
 
 
 def test_fast_flat_knn_folded_mode_high_recall():
-    """scan_mode='folded' (accumulating kernel path; XLA twin on CPU) keeps
-    near-exact recall via oversample + rerank despite the coarser
-    n_slots*128-bin fold."""
-    from parallel_hnsw_tpu.analysis import brute_force_knn, fast_flat_knn
-    from parallel_hnsw_tpu.graph import DenseSource
+    """scan_mode='folded' (the fused fold; its chunked XLA route on CPU)
+    keeps near-exact recall via oversample + rerank despite the coarser
+    n_slots*128-class fold."""
+    from parallel_hnsw.analysis import brute_force_knn, fast_flat_knn
+    from parallel_hnsw.graph import DenseSource
 
     vecs = _unit(5000, 32)
     src = DenseSource(vectors=jnp.asarray(vecs))
@@ -118,22 +143,46 @@ def test_fast_flat_knn_folded_mode_high_recall():
 
 
 def test_select_scan_mode_matches_measured_frontier():
-    """scan_mode='auto' must follow the measured on-chip frontier
-    (BENCH_NOTES 'Flat-scan kernel scaling 1M-8M'): folded wins >= 2M."""
-    from parallel_hnsw_tpu.analysis import select_scan_mode
+    """scan_mode='auto' follows the frontier measured on the H100: the
+    exhaustive scan below FOLD_MIN_ROWS, the fused fold from there on."""
+    from parallel_hnsw.analysis import FOLD_MIN_ROWS, select_scan_mode
 
     assert select_scan_mode(10_000) == "exhaustive"
-    assert select_scan_mode(199_999) == "exhaustive"
-    assert select_scan_mode(200_000) == "binned"
-    assert select_scan_mode(1_048_576) == "binned"
-    assert select_scan_mode(2_000_000) == "folded"
+    assert select_scan_mode(FOLD_MIN_ROWS - 1) == "exhaustive"
+    assert select_scan_mode(FOLD_MIN_ROWS) == "folded"
     assert select_scan_mode(8_388_608) == "folded"
 
 
+def test_brute_force_knn_matches_float64_within_epsilon():
+    """The exact scan's distances are within the self-match epsilon of
+    NumPy float64 on norms where the dot-product expansion alone is not
+    (clustered rows with |x|^2 ~ 130)."""
+    from parallel_hnsw.analysis import brute_force_knn
+    from parallel_hnsw.constants import MATCH_EPSILON
+    from parallel_hnsw.utils.data import clustered_corpus
+
+    allv = np.asarray(clustered_corpus(3100, 128, centers=16, seed=3).vectors)
+    base, q = allv[:3000], allv[3000:]
+    from parallel_hnsw.graph import DenseSource
+
+    ids, d = brute_force_knn(
+        DenseSource(vectors=jnp.asarray(base)), jnp.asarray(q),
+        Metric.EUCLIDEAN, 10,
+    )
+    ids, d = np.asarray(ids), np.asarray(d)
+    b64, q64 = base.astype(np.float64), q.astype(np.float64)
+    d64 = np.sqrt(((q64[:, None, :] - b64[None, :, :]) ** 2).sum(-1))
+    want = np.argsort(d64, axis=1, kind="stable")[:, :10]
+    got_d64 = np.take_along_axis(d64, ids, axis=1)
+    assert np.max(np.abs(d - got_d64)) <= MATCH_EPSILON
+    want_d64 = np.take_along_axis(d64, want, axis=1)
+    assert np.all((ids == want) | (np.abs(got_d64 - want_d64) <= MATCH_EPSILON))
+
+
 def test_hnsw_search_exact_fast_path():
-    from parallel_hnsw_tpu.graph import DenseSource
-    from parallel_hnsw_tpu.index import Hnsw
-    from parallel_hnsw_tpu.params import BuildParams
+    from parallel_hnsw.graph import DenseSource
+    from parallel_hnsw.index import Hnsw
+    from parallel_hnsw.params import BuildParams
 
     vecs = _unit(300, 16)
     src = DenseSource(vectors=jnp.asarray(vecs))

@@ -4,11 +4,11 @@ invalidation on graph mutation."""
 import jax.numpy as jnp
 import numpy as np
 
-from parallel_hnsw_tpu.graph import DenseSource
-from parallel_hnsw_tpu.index import Hnsw
-from parallel_hnsw_tpu.ops.distance import Metric
-from parallel_hnsw_tpu.params import BuildParams, OptimizationParams
-from parallel_hnsw_tpu.utils.data import random_unit_corpus
+from parallel_hnsw.graph import DenseSource
+from parallel_hnsw.index import Hnsw
+from parallel_hnsw.ops.distance import Metric
+from parallel_hnsw.params import BuildParams, OptimizationParams
+from parallel_hnsw.utils.data import random_unit_corpus
 
 BP = BuildParams(
     order=6,
@@ -69,8 +69,8 @@ def test_slab_memory_budget_enforced():
 
 def test_pq_code_graph_with_routed_slabs():
     """Slabs on the PQ code graph: same rerank contract, recall holds."""
-    from parallel_hnsw_tpu.params import PqBuildParams
-    from parallel_hnsw_tpu.pq import QuantizedHnsw
+    from parallel_hnsw.params import PqBuildParams
+    from parallel_hnsw.pq import QuantizedHnsw
 
     source = random_unit_corpus(800, 32, seed=9)
     q = QuantizedHnsw.new(

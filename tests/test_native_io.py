@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from parallel_hnsw_tpu.utils import datasets
+from parallel_hnsw.utils import datasets
 
 
 def write_vecs(path, arr, elt):
@@ -26,7 +26,7 @@ def fvecs(tmp_path):
 
 
 def test_native_compiles():
-    from parallel_hnsw_tpu.native import load_vecio
+    from parallel_hnsw.native import load_vecio
 
     lib = load_vecio()
     assert lib is not None

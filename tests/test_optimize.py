@@ -4,17 +4,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from parallel_hnsw_tpu.analysis import first_hit_recall
-from parallel_hnsw_tpu.build import generate
-from parallel_hnsw_tpu.graph import assert_layer_invariants
-from parallel_hnsw_tpu.optimize import (
+from parallel_hnsw.analysis import first_hit_recall
+from parallel_hnsw.build import generate
+from parallel_hnsw.graph import assert_layer_invariants
+from parallel_hnsw.optimize import (
     improve_neighbors,
     link_layer_to_better_neighbors,
     stochastic_recall,
 )
-from parallel_hnsw_tpu.ops.distance import Metric
-from parallel_hnsw_tpu.params import BuildParams
-from parallel_hnsw_tpu.utils.data import random_unit_corpus
+from parallel_hnsw.ops.distance import Metric
+from parallel_hnsw.params import BuildParams
+from parallel_hnsw.utils.data import random_unit_corpus
 
 METRIC = Metric.NORMALIZED_COSINE
 
@@ -52,7 +52,7 @@ def test_improve_neighbors_reaches_high_recall():
 def test_interrupt_cancels_improve_index():
     """A monitor raising Interrupt stops improve_index mid-loop (reference
     threads &mut dyn ProgressMonitor through, src/lib.rs:1551-1554)."""
-    from parallel_hnsw_tpu.progress import Interrupt, ProgressMonitor
+    from parallel_hnsw.progress import Interrupt, ProgressMonitor
 
     class CountdownMonitor(ProgressMonitor):
         def __init__(self, n):
@@ -64,8 +64,8 @@ def test_interrupt_cancels_improve_index():
             if self.calls > self.n:
                 raise Interrupt()
 
-    from parallel_hnsw_tpu.index import Hnsw
-    from parallel_hnsw_tpu.params import OptimizationParams
+    from parallel_hnsw.index import Hnsw
+    from parallel_hnsw.params import OptimizationParams
 
     bp = BuildParams(
         order=6,
@@ -85,7 +85,7 @@ def test_fast_blocked_topk_matches_exact():
     """The million-row fast tier (bf16 scan + approx_min_k + exact rerank)
     must reproduce the exact blocked top-k, including diagonal exclusion
     across block boundaries and when k_scan exceeds a block."""
-    from parallel_hnsw_tpu.analysis import blocked_topk_pairwise
+    from parallel_hnsw.analysis import blocked_topk_pairwise
 
     source = random_unit_corpus(700, 24, seed=9)
     feats = source.vectors
@@ -106,7 +106,7 @@ def test_fast_blocked_topk_matches_exact():
 
 def test_fast_relink_tier_matches_exact_relink():
     """Above the exact threshold but under the fast threshold, relink must
-    use the fast MXU tier and produce the same edges as the exact tier."""
+    use the fast scan tier and produce the same edges as the exact tier."""
     source, bp, layers = build_small(count=500)
     exact_layers, _, tier = link_layer_to_better_neighbors(
         layers, len(layers) - 1, source, METRIC, bp.optimization.search,

@@ -3,7 +3,7 @@ device (or in host RAM) as a whole.
 
 The reference streams vectors from an arbitrary user store through its
 ``VectorSelector``/``VectorStore`` seam (src/pq.rs:133-142, used at
-:325-334); these tests drive the TPU-native equivalent end-to-end on the
+:325-334); these tests drive the array equivalent end-to-end on the
 8-virtual-device CPU mesh: a ``MemmapSource`` corpus on disk is quantized in
 streamed chunks (per shard, on the shard's own device), searched through the
 full distributed program, and exact-reranked by gathering only the candidate
@@ -16,17 +16,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from parallel_hnsw_tpu.constants import EMPTY_ID
-from parallel_hnsw_tpu.graph import MemmapSource, open_memmap_source
-from parallel_hnsw_tpu.ops.distance import Metric
-from parallel_hnsw_tpu.params import (
+from parallel_hnsw.constants import EMPTY_ID
+from parallel_hnsw.graph import MemmapSource, open_memmap_source
+from parallel_hnsw.ops.distance import Metric
+from parallel_hnsw.params import (
     BuildParams,
     OptimizationParams,
     PqBuildParams,
     SearchParams,
 )
-from parallel_hnsw_tpu.parallel import ShardedQuantizedHnsw, default_mesh
-from parallel_hnsw_tpu.utils.data import random_unit_corpus
+from parallel_hnsw.parallel import ShardedQuantizedHnsw, default_mesh
+from parallel_hnsw.utils.data import random_unit_corpus
 
 BP = BuildParams(
     order=6,
@@ -66,7 +66,7 @@ def test_open_memmap_source(tmp_path):
 
 
 def test_memmap_source_get_outside_jit(tmp_path):
-    from parallel_hnsw_tpu.graph import source_get
+    from parallel_hnsw.graph import source_get
 
     mm, arr = _write_memmap(tmp_path, 32, 8, seed=2)
     out = np.asarray(source_get(mm, jnp.asarray([[0, 5], [31, 2]])))
@@ -75,7 +75,7 @@ def test_memmap_source_get_outside_jit(tmp_path):
 
 def test_quantized_hnsw_from_memmap(tmp_path):
     """Single-index PQ build streaming straight from disk."""
-    from parallel_hnsw_tpu.pq import QuantizedHnsw
+    from parallel_hnsw.pq import QuantizedHnsw
 
     mm, arr = _write_memmap(tmp_path, 300, 16, seed=23)
     q = QuantizedHnsw.new(
@@ -182,8 +182,8 @@ def test_search_exact_in_core_matches_out_of_core(tmp_path):
     i_out, d_out = ooc_idx.search_exact(queries, k=5, fast=False, oversample=64)
     np.testing.assert_array_equal(np.asarray(i_in), np.asarray(i_out))
     np.testing.assert_allclose(np.asarray(d_in), np.asarray(d_out), atol=1e-5)
-    from parallel_hnsw_tpu.analysis import brute_force_knn
-    from parallel_hnsw_tpu.graph import DenseSource
+    from parallel_hnsw.analysis import brute_force_knn
+    from parallel_hnsw.graph import DenseSource
 
     gt_ids, gt_d = brute_force_knn(
         DenseSource(vectors=jnp.asarray(arr)), queries, Metric.EUCLIDEAN, 5
@@ -215,7 +215,7 @@ def test_out_of_core_matches_in_core_codes(tmp_path):
 
 
 def test_out_of_core_roundtrip(tmp_path, ooc):
-    from parallel_hnsw_tpu.io import (
+    from parallel_hnsw.io import (
         deserialize_sharded_quantized_hnsw,
         serialize_sharded_quantized_hnsw,
     )
@@ -242,13 +242,13 @@ def test_out_of_core_roundtrip(tmp_path, ooc):
 
 def test_scan_only_build(tmp_path):
     """build_graphs=False: no shard graphs are built (the config-5 serving
-    shape — the flat code scan is the engine, BENCH_NOTES config5), flat
+    shape — the flat code scan is the engine), flat
     scans and the serialize round-trip work, graph paths raise."""
-    from parallel_hnsw_tpu.io import (
+    from parallel_hnsw.io import (
         deserialize_sharded_hnsw,
         serialize_sharded_hnsw,
     )
-    from parallel_hnsw_tpu.parallel import ShardedHnsw
+    from parallel_hnsw.parallel import ShardedHnsw
 
     mm, arr = _write_memmap(tmp_path, 96, 8, seed=9)
     mesh = default_mesh()
@@ -282,17 +282,17 @@ def test_scan_only_build(tmp_path):
 
 def test_sharded_per_subspace(tmp_path):
     """Sharded per-subspace PQ (classic product quantization; the codebook
-    layout that cleared the 10M recall floor, BENCH_NOTES config4) works on
+    layout) works on
     the mesh in BOTH residency modes: the quantizer is a SubspaceQuantizer
     (no centroid graph), the [nsub, K, dsub] codebook flows through the
     stacked PqSource, streamed out-of-core codes match the in-core ones,
     search/search_exact answer correctly, and the nested serialization
     round-trips the subspace quantizer."""
-    from parallel_hnsw_tpu.io import (
+    from parallel_hnsw.io import (
         deserialize_sharded_quantized_hnsw,
         serialize_sharded_quantized_hnsw,
     )
-    from parallel_hnsw_tpu.pq import SubspaceQuantizer
+    from parallel_hnsw.pq import SubspaceQuantizer
 
     mm, arr = _write_memmap(tmp_path, 230, 16, seed=21)
     dense = random_unit_corpus(230, 16, seed=21)

@@ -1,11 +1,11 @@
 """Golden tests for candidate-queue ops, ported from the reference's
-priority_queue.rs unit tests (/root/reference/src/priority_queue.rs:225-440)."""
+priority_queue.rs unit tests (reference: src/priority_queue.rs:225-440)."""
 
 import jax.numpy as jnp
 import numpy as np
 
-from parallel_hnsw_tpu.constants import EMPTY_DIST, EMPTY_ID
-from parallel_hnsw_tpu.ops.queues import (
+from parallel_hnsw.constants import EMPTY_DIST, EMPTY_ID
+from parallel_hnsw.ops.queues import (
     dedup_sorted,
     empty_queue,
     merge_queue,
@@ -159,7 +159,7 @@ def test_chunked_rebuild_rows_matches_flat(monkeypatch):
     fp distances (dedup keeps the min)."""
     import numpy as np
 
-    from parallel_hnsw_tpu.ops import segment
+    from parallel_hnsw.ops import segment
 
     rng = np.random.default_rng(7)
     n, m, e = 50, 4, 4000

@@ -1,7 +1,7 @@
 """Self-repair tests: the improve/promote loop heals broken graphs.
 
 Mirrors the reference's broken-graph fixture (make_broken_hnsw,
-/root/reference/src/lib.rs:2017-2044) and test_tiny_index_improvement
+reference: src/lib.rs:2017-2044) and test_tiny_index_improvement
 (src/lib.rs:2287-2298).
 """
 
@@ -10,11 +10,11 @@ import math
 import jax.numpy as jnp
 import numpy as np
 
-from parallel_hnsw_tpu.constants import EMPTY_ID
-from parallel_hnsw_tpu.graph import DenseSource, Layer
-from parallel_hnsw_tpu.index import Hnsw
-from parallel_hnsw_tpu.ops.distance import Metric
-from parallel_hnsw_tpu.params import BuildParams, OptimizationParams, SearchParams
+from parallel_hnsw.constants import EMPTY_ID
+from parallel_hnsw.graph import DenseSource, Layer
+from parallel_hnsw.index import Hnsw
+from parallel_hnsw.ops.distance import Metric
+from parallel_hnsw.params import BuildParams, OptimizationParams, SearchParams
 
 R = 1.0 / math.sqrt(2.0)
 DATA10 = np.array(

@@ -1,24 +1,24 @@
-"""Routing-vector traversal: the TPU realization of the reference's declared
+"""Routing-vector traversal: the array realization of the reference's declared
 PartialDistance intent (src/pq.rs:24-27) — compact bf16 hop scoring + exact
-final rerank (parallel_hnsw_tpu/routing.py)."""
+final rerank (parallel_hnsw/routing.py)."""
 
 import jax.numpy as jnp
 import numpy as np
 
-from parallel_hnsw_tpu.analysis import brute_force_knn
-from parallel_hnsw_tpu.constants import EMPTY_ID
-from parallel_hnsw_tpu.graph import DenseSource
-from parallel_hnsw_tpu.index import Hnsw
-from parallel_hnsw_tpu.ops.distance import Metric, pairwise_distance
-from parallel_hnsw_tpu.params import BuildParams, OptimizationParams, SearchParams
-from parallel_hnsw_tpu.routing import (
+from parallel_hnsw.analysis import brute_force_knn
+from parallel_hnsw.constants import EMPTY_ID
+from parallel_hnsw.graph import DenseSource
+from parallel_hnsw.index import Hnsw
+from parallel_hnsw.ops.distance import Metric, pairwise_distance
+from parallel_hnsw.params import BuildParams, OptimizationParams, SearchParams
+from parallel_hnsw.routing import (
     build_routing,
     exact_rerank,
     random_orthonormal,
     route_metric,
     route_queries,
 )
-from parallel_hnsw_tpu.utils.data import random_unit_corpus
+from parallel_hnsw.utils.data import random_unit_corpus
 
 BP = BuildParams(optimization=OptimizationParams(recall_proportion=0.5))
 SP = SearchParams(number_of_candidates=48, upper_layer_candidate_count=48)
@@ -28,8 +28,8 @@ def lowrank_unit_corpus(count, dim, rank=48, centers=24, seed=0, noise=0.02):
     """Clustered vectors on a low-rank subspace of a high ambient dimension —
     the realistic embedding shape (transformer embeddings have sharply
     decaying spectra).  Isotropic full-dimension noise is the pathology where
-    NO reduced representation (projection or PQ) can rank-order neighbors
-    (BENCH_NOTES config2/config4); routing targets spectrally-concentrated
+    NO reduced representation (projection or PQ) can rank-order neighbors;
+    routing targets spectrally-concentrated
     corpora, with ambient noise bounded by the exact rerank's oversample."""
     rng = np.random.default_rng(seed)
     basis, _ = np.linalg.qr(rng.normal(size=(dim, rank)))

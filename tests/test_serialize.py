@@ -6,18 +6,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from parallel_hnsw_tpu.graph import DenseSource, PqSource
-from parallel_hnsw_tpu.index import Hnsw
-from parallel_hnsw_tpu.io import (
+from parallel_hnsw.graph import DenseSource, PqSource
+from parallel_hnsw.index import Hnsw
+from parallel_hnsw.io import (
     IndexNotFound,
     deserialize_hnsw,
     deserialize_source,
     serialize_hnsw,
     serialize_source,
 )
-from parallel_hnsw_tpu.ops.distance import Metric
-from parallel_hnsw_tpu.params import BuildParams, OptimizationParams
-from parallel_hnsw_tpu.utils.data import random_unit_corpus
+from parallel_hnsw.ops.distance import Metric
+from parallel_hnsw.params import BuildParams, OptimizationParams
+from parallel_hnsw.utils.data import random_unit_corpus
 
 
 def build(count=120, dim=8):
@@ -81,9 +81,9 @@ def test_pq_source_round_trip(tmp_path):
 
 
 def test_quantized_round_trip(tmp_path):
-    from parallel_hnsw_tpu.io import deserialize_quantized_hnsw, serialize_quantized_hnsw
-    from parallel_hnsw_tpu.params import PqBuildParams, SearchParams
-    from parallel_hnsw_tpu.pq import QuantizedHnsw
+    from parallel_hnsw.io import deserialize_quantized_hnsw, serialize_quantized_hnsw
+    from parallel_hnsw.params import PqBuildParams, SearchParams
+    from parallel_hnsw.pq import QuantizedHnsw
 
     bp = BuildParams(
         order=6, neighborhood_size=4, zero_layer_neighborhood_size=8,
@@ -166,12 +166,12 @@ def test_resume_rejects_mismatched_checkpoint(tmp_path):
 def test_per_subspace_quantized_round_trip(tmp_path):
     """SubspaceQuantizer indexes persist: codebooks dump raw under
     quantizer/ with a quantizer_kind tag (no centroid graph to store)."""
-    from parallel_hnsw_tpu.io import (
+    from parallel_hnsw.io import (
         deserialize_quantized_hnsw,
         serialize_quantized_hnsw,
     )
-    from parallel_hnsw_tpu.params import PqBuildParams, SearchParams
-    from parallel_hnsw_tpu.pq import QuantizedHnsw, SubspaceQuantizer
+    from parallel_hnsw.params import PqBuildParams, SearchParams
+    from parallel_hnsw.pq import QuantizedHnsw, SubspaceQuantizer
 
     bp = BuildParams(
         order=6, neighborhood_size=4, zero_layer_neighborhood_size=8,

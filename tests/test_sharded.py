@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from parallel_hnsw_tpu.analysis import brute_force_knn
-from parallel_hnsw_tpu.constants import EMPTY_ID
-from parallel_hnsw_tpu.ops.distance import Metric
-from parallel_hnsw_tpu.params import BuildParams, OptimizationParams, SearchParams
-from parallel_hnsw_tpu.parallel import ShardedHnsw, default_mesh
-from parallel_hnsw_tpu.utils.data import random_unit_corpus
+from parallel_hnsw.analysis import brute_force_knn
+from parallel_hnsw.constants import EMPTY_ID
+from parallel_hnsw.ops.distance import Metric
+from parallel_hnsw.params import BuildParams, OptimizationParams, SearchParams
+from parallel_hnsw.parallel import ShardedHnsw, default_mesh
+from parallel_hnsw.utils.data import random_unit_corpus
 
 BP = BuildParams(
     order=6,
@@ -67,13 +67,13 @@ def test_sharded_pq_source():
     # PQ-compressed shards: per-shard code arrays + replicated codebook —
     # the BASELINE 100M-config layout at toy scale
     import jax.numpy as jnp
-    from parallel_hnsw_tpu.graph import PqSource
-    from parallel_hnsw_tpu.pq import HnswQuantizer, QuantizedHnsw, random_centroids
+    from parallel_hnsw.graph import PqSource
+    from parallel_hnsw.pq import HnswQuantizer, QuantizedHnsw, random_centroids
 
     source = random_unit_corpus(200, 16, seed=21)
     book = random_centroids(source.vectors, 64, 4, seed=0)
     # quantize the corpus exactly
-    from parallel_hnsw_tpu.ops.distance import pairwise_distance
+    from parallel_hnsw.ops.distance import pairwise_distance
 
     subs = np.asarray(source.vectors).reshape(-1, 4)
     d = np.asarray(
@@ -101,7 +101,7 @@ def test_sharded_stochastic_recall(sharded):
 
 
 def test_sharded_roundtrip(tmp_path, sharded):
-    from parallel_hnsw_tpu.io import deserialize_sharded_hnsw, serialize_sharded_hnsw
+    from parallel_hnsw.io import deserialize_sharded_hnsw, serialize_sharded_hnsw
 
     source, sh = sharded
     serialize_sharded_hnsw(sh, tmp_path / "sh")
@@ -117,8 +117,8 @@ def test_sharded_roundtrip(tmp_path, sharded):
 
 @pytest.fixture(scope="module")
 def sharded_pq():
-    from parallel_hnsw_tpu.params import PqBuildParams
-    from parallel_hnsw_tpu.parallel import ShardedQuantizedHnsw
+    from parallel_hnsw.params import PqBuildParams
+    from parallel_hnsw.parallel import ShardedQuantizedHnsw
 
     source = random_unit_corpus(300, 16, seed=23)
     pqp = PqBuildParams(
@@ -155,7 +155,7 @@ def test_sharded_pq_build_and_search(sharded_pq):
 
 
 def test_sharded_pq_roundtrip(tmp_path, sharded_pq):
-    from parallel_hnsw_tpu.io import (
+    from parallel_hnsw.io import (
         deserialize_sharded_quantized_hnsw,
         serialize_sharded_quantized_hnsw,
     )
@@ -171,7 +171,7 @@ def test_sharded_pq_roundtrip(tmp_path, sharded_pq):
 
 
 def test_sharded_flat_scan_exact_and_fast(sharded):
-    """ShardedHnsw.search_exact: per-shard flat scans + ICI merge find the
+    """ShardedHnsw.search_exact: per-shard flat scans + cross-shard merge find the
     true nearest neighbors across the whole sharded corpus."""
     source, sh = sharded
     queries = source.vectors[:24]

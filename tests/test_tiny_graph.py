@@ -1,7 +1,7 @@
 """End-to-end search over the reference's golden 9-vector graph.
 
 The graph is host-built to exactly match the expected neighbors slab from the
-reference's ``test_generation`` (/root/reference/src/lib.rs:2070-2152), and
+reference's ``test_generation`` (reference: src/lib.rs:2070-2152), and
 search results are checked against ``test_nearness_search``
 (src/lib.rs:2046-2068) including exact distances.
 """
@@ -12,11 +12,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from parallel_hnsw_tpu.constants import EMPTY_ID, MATCH_EPSILON
-from parallel_hnsw_tpu.graph import DenseSource, make_layer
-from parallel_hnsw_tpu.ops.distance import Metric
-from parallel_hnsw_tpu.params import SearchParams
-from parallel_hnsw_tpu.search import search
+from parallel_hnsw.constants import EMPTY_ID, MATCH_EPSILON
+from parallel_hnsw.graph import DenseSource, make_layer
+from parallel_hnsw.ops.distance import Metric
+from parallel_hnsw.params import SearchParams
+from parallel_hnsw.search import search
 
 R = 1.0 / math.sqrt(2.0)
 SILLY_DATA = np.array(
@@ -129,7 +129,7 @@ def test_query_chunking(setup):
 def test_adaptive_host_path_matches_lockstep(setup):
     """The host-driven convergence-tail compaction path (search_host) runs the
     same hop math in retiring chunks; results must equal the lockstep program
-    (VERDICT r2 weak #8: the adaptive path must be covered or deleted)."""
+    (the adaptive path must be covered or deleted)."""
     layers, source, sp = setup
     queries = jnp.asarray(SILLY_DATA)
     ids_a, d_a = search(layers, source, Metric.COSINE, queries, sp)
@@ -141,9 +141,9 @@ def test_adaptive_host_path_matches_lockstep(setup):
 def test_adaptive_host_path_larger_graph():
     """Adaptive vs lockstep on a built graph with stragglers (mixed
     convergence times) — exercises the compaction/retire logic itself."""
-    from parallel_hnsw_tpu.index import Hnsw
-    from parallel_hnsw_tpu.params import BuildParams, OptimizationParams
-    from parallel_hnsw_tpu.utils.data import random_unit_corpus
+    from parallel_hnsw.index import Hnsw
+    from parallel_hnsw.params import BuildParams, OptimizationParams
+    from parallel_hnsw.utils.data import random_unit_corpus
 
     src = random_unit_corpus(600, 16, seed=3)
     hnsw = Hnsw.generate(

@@ -4,11 +4,11 @@ upgrade over the reference's eprintln narration, src/lib.rs:687-874)."""
 import jax.numpy as jnp
 import numpy as np
 
-from parallel_hnsw_tpu.graph import DenseSource
-from parallel_hnsw_tpu.index import Hnsw
-from parallel_hnsw_tpu.ops.distance import Metric
-from parallel_hnsw_tpu.params import BuildParams, OptimizationParams
-from parallel_hnsw_tpu.utils.trace import TRACER, Tracer
+from parallel_hnsw.graph import DenseSource
+from parallel_hnsw.index import Hnsw
+from parallel_hnsw.ops.distance import Metric
+from parallel_hnsw.params import BuildParams, OptimizationParams
+from parallel_hnsw.utils.trace import TRACER, Tracer
 
 
 def test_tracer_nesting_and_summary():
