@@ -59,7 +59,7 @@ def _scan_block(q, vecs, offset, metric, kk, mode):
     from parallel_hnsw.ops.pallas_scan import folded_scan
 
     if mode == "folded":
-        bd, bc = folded_scan(q, vecs, metric, tile_c=4096, exact=False)
+        bd, bc = folded_scan(q, vecs, metric)
         dd, pos = jax.lax.approx_min_k(bd, min(kk, bd.shape[-1]))
         ids = jnp.take_along_axis(bc, pos, axis=-1) + offset
         # padding classes carry inf: mark their ids EMPTY so the rerank

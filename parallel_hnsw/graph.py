@@ -226,6 +226,7 @@ def gather_features(source, ids: jax.Array, block: int = 8192) -> jax.Array:
     return jnp.concatenate(outs)
 
 
+@jax.jit
 def vec_to_node(nodes: jax.Array, vids: jax.Array) -> jax.Array:
     """Map vector ids to node ids via binary search on the sorted ``nodes``.
 
@@ -239,6 +240,7 @@ def vec_to_node(nodes: jax.Array, vids: jax.Array) -> jax.Array:
     return jnp.where(found, pos, EMPTY_ID).astype(ID_DTYPE)
 
 
+@jax.jit
 def node_to_vec(nodes: jax.Array, nids: jax.Array) -> jax.Array:
     """Map node ids back to vector ids (reference: Layer::get_vector)."""
     n = nodes.shape[0]

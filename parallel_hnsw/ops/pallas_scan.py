@@ -20,6 +20,9 @@ lost only when a strictly closer row shares its slot and lane; callers keep
 
 Routes, one per platform (:func:`scan_route`):
 
+Both routes take bf16 operands and accumulate in f32; callers rerank the
+survivors exactly.
+
 * ``gpu``: :func:`triton_folded_scan`, one Pallas kernel through Triton.
   The grid is (query tiles, slots); each block walks its slot in chunks of
   128 columns in a ``fori_loop``, carrying the running minimum and argmin of
@@ -28,7 +31,8 @@ Routes, one per platform (:func:`scan_route`):
   distance block stays under a byte cap.
 
 :func:`xla_binned_scan` and :func:`xla_folded_scan` are the unchunked plain
-references that the tests compare both routes with.
+references in f32 that the tests compare both routes with (on bf16-rounded
+inputs).
 
 No reference analogue (the reference has no flat-scan engine).
 """
@@ -46,6 +50,10 @@ from parallel_hnsw.constants import MATRIX_BYTE_BUDGET
 from parallel_hnsw.ops.distance import Metric, pairwise_distance
 
 LANES = 128
+
+# Corpus tile of the fold: a slot is a whole number of these.  Every caller
+# uses this geometry; the tests shrink it to reach several slots cheaply.
+TILE_C = 4096
 
 # Triton launch parameters: the fastest of a sweep over block_q {64, 128,
 # 256} x num_warps {4, 8} x num_stages {2, 3, 4} on an H100 (400 W limit) at
@@ -119,8 +127,7 @@ def _fold_kernel(x_ref, y_ref, w_ref, outt_ref, outi_ref, *, scale, slot_cols):
         off = pl.multiple_of(j * LANES, LANES)
         y = y_ref[pl.ds(off, LANES), :]  # [128, Dp]
         w = w_ref[pl.ds(off, LANES)]  # [128]
-        # HIGHEST keeps f32 operands off TF32 (IEEE products); bf16 ignores it
-        dots = pl.dot(x, y, trans_b=True, precision=jax.lax.Precision.HIGHEST)
+        dots = pl.dot(x, y, trans_b=True)  # bf16 operands, f32 accumulation
         t = w[None, :] - scale * dots
         better = t < best_t
         col = base + off + lane
@@ -146,7 +153,7 @@ def triton_folded_scan(
     x: jax.Array,
     y: jax.Array,
     metric: Metric,
-    tile_c: int = 2048,
+    tile_c: int = TILE_C,
     n_slots: int = 32,
     block_q: int = BLOCK_Q,
     interpret: bool = False,
@@ -154,11 +161,13 @@ def triton_folded_scan(
     """``[Q, D] x [C, D] -> (dists, cols)`` of shape ``[Q, n_slots' * 128]``
     through the Triton kernel (``n_slots' = min(n_slots, ceil(C/tile_c))``).
 
-    Q pads to ``block_q``, D to a power of two of at least 16 (zeros leave
-    every distance unchanged), C to the slot geometry (padding columns carry
-    ``+inf``).  Operands keep their dtype: bf16 for the fast scan, f32
-    (IEEE products) otherwise; the product accumulates in f32."""
+    Operands are cast to bf16; the product accumulates in f32.  Q pads to
+    ``block_q``, D to a power of two of at least 16 (zeros leave every
+    distance unchanged), C to the slot geometry (padding columns carry
+    ``+inf``)."""
     metric = Metric(metric)
+    x = x.astype(jnp.bfloat16)
+    y = y.astype(jnp.bfloat16)
     q, d = x.shape
     c = y.shape[0]
     n_slots, slot_cols = fold_geometry(c, tile_c, n_slots)
@@ -211,19 +220,21 @@ def chunked_folded_scan(
     x: jax.Array,
     y: jax.Array,
     metric: Metric,
-    tile_c: int = 2048,
+    tile_c: int = TILE_C,
     n_slots: int = 32,
-    exact: bool = False,
     block_bytes: int = MATRIX_BYTE_BUDGET,
 ):
-    """The fold in plain XLA, same output as :func:`xla_folded_scan`, with
-    no live distance block above ``block_bytes``.
+    """The fold in plain XLA on bf16 operands, same output as
+    :func:`xla_folded_scan`, with no live distance block above
+    ``block_bytes``.
 
     A step covers whole slots when one slot's ``[Q, slot_cols]`` block fits
     the cap; otherwise it covers an aligned part of one slot and folds into
     that slot's running minimum (strict ``<``: the first column wins ties,
     as in the reference)."""
     metric = Metric(metric)
+    x = x.astype(jnp.bfloat16)
+    y = y.astype(jnp.bfloat16)
     q = x.shape[0]
     c = y.shape[0]
     n_slots, slot_cols = fold_geometry(c, tile_c, n_slots)
@@ -251,7 +262,7 @@ def chunked_folded_scan(
                 jnp.full((q, runs, LANES), jnp.inf, jnp.float32),
                 jnp.broadcast_to(base[None, :, None] + lane, (q, runs, LANES)),
             )
-        d = pairwise_distance(x, yb, metric, exact=exact)
+        d = pairwise_distance(x, yb, metric, exact=False)
         if yb.shape[0] < step:
             pad = jnp.full((q, step - yb.shape[0]), jnp.inf, jnp.float32)
             d = jnp.concatenate([d, pad], axis=-1)
@@ -288,12 +299,11 @@ def xla_folded_scan(
     x: jax.Array,
     y: jax.Array,
     metric: Metric,
-    tile_c: int = 2048,
-    n_slots: int = 16,
-    exact: bool = False,
+    tile_c: int = TILE_C,
+    n_slots: int = 32,
 ):
     """Plain reference of the fold (materializes ``[Q, C]``; tests only)."""
-    bin_d, cols = xla_binned_scan(x, y, metric, tile_c=tile_c, exact=exact)
+    bin_d, cols = xla_binned_scan(x, y, metric, tile_c=tile_c)
     q = x.shape[0]
     n_c_tiles = bin_d.shape[1] // LANES
     n_slots = min(n_slots, n_c_tiles)
@@ -314,15 +324,13 @@ def xla_folded_scan(
     return out_d.reshape(q, -1), out_i.reshape(q, -1)
 
 
-def xla_binned_scan(
-    x: jax.Array, y: jax.Array, metric: Metric, tile_c: int = 2048,
-    exact: bool = False,
-):
-    """Plain reference of the binned scan (one tile per slot)."""
+def xla_binned_scan(x: jax.Array, y: jax.Array, metric: Metric, tile_c: int = TILE_C):
+    """Plain reference of the binned scan (one tile per slot), f32 at
+    ``Precision.HIGHEST``."""
     q, _ = x.shape
     c, _ = y.shape
     cp = _round_up(c, tile_c)
-    d = pairwise_distance(x, y, metric, exact=exact)
+    d = pairwise_distance(x, y, metric)
     if cp != c:
         d = jnp.concatenate(
             [d, jnp.full((q, cp - c), jnp.inf, jnp.float32)], axis=-1
@@ -353,31 +361,17 @@ def _platform(x) -> str:
     return jax.default_backend()
 
 
-def folded_scan(
-    x,
-    y,
-    metric,
-    tile_c: int = 2048,
-    n_slots: int = 32,
-    exact: bool = False,
-):
-    """The fused scan on this platform's route.  Output is ``[Q,
-    n_slots' * 128]`` whatever the corpus size.  The fast mode
-    (``exact=False``) casts both operands to bf16; callers rerank the
+def folded_scan(x, y, metric, n_slots: int = 32):
+    """The fused scan on this platform's route, on bf16 operands.  Output
+    is ``[Q, n_slots' * 128]`` whatever the corpus size; callers rerank the
     survivors exactly."""
     metric = Metric(metric)
-    if not exact:
-        x = x.astype(jnp.bfloat16)
-        y = y.astype(jnp.bfloat16)
     if scan_route(_platform(x)) == "triton":
-        return triton_folded_scan(x, y, metric, tile_c=tile_c, n_slots=n_slots)
-    return chunked_folded_scan(
-        x, y, metric, tile_c=tile_c, n_slots=n_slots, exact=exact
-    )
+        return triton_folded_scan(x, y, metric, n_slots=n_slots)
+    return chunked_folded_scan(x, y, metric, n_slots=n_slots)
 
 
-def binned_scan(x, y, metric, tile_c: int = 2048, exact: bool = False):
-    """The fold with one ``tile_c`` tile per slot: output width
-    ``ceil(C / tile_c) * 128``."""
-    n_tiles = max(1, -(-y.shape[0] // tile_c))
-    return folded_scan(x, y, metric, tile_c=tile_c, n_slots=n_tiles, exact=exact)
+def binned_scan(x, y, metric):
+    """The fold with one ``TILE_C`` tile per slot: output width
+    ``ceil(C / TILE_C) * 128``."""
+    return folded_scan(x, y, metric, n_slots=max(1, -(-y.shape[0] // TILE_C)))

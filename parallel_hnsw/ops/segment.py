@@ -15,6 +15,7 @@ within each ``dst`` segment, keep ranks < M, and scatter into a fresh
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import jax
@@ -61,6 +62,7 @@ def rebuild_rows(
     return acc_i, acc_d
 
 
+@functools.partial(jax.jit, static_argnums=(4,))
 def _merge_slabs(a_i, a_d, b_i, b_d, m: int) -> Tuple[jax.Array, jax.Array]:
     """Row-wise best-m merge of two (dist, src)-sorted EMPTY-padded slabs,
     dedup by src keeping the smaller distance (robust to fp-path skew)."""
@@ -82,6 +84,9 @@ def _merge_slabs(a_i, a_d, b_i, b_d, m: int) -> Tuple[jax.Array, jax.Array]:
     return i2[..., :m], d2[..., :m]
 
 
+# one program per shape: run eagerly, each of its two dozen ops is a compile
+# of its own at every new edge count
+@functools.partial(jax.jit, static_argnums=(0, 1))
 def _rebuild_rows_flat(
     n_rows: int,
     m: int,

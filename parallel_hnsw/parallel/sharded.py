@@ -236,10 +236,11 @@ class ShardedHnsw:
         if parallel_build and n_shards > 1:
             from concurrent.futures import ThreadPoolExecutor
 
-            # warm-one-then-fan-out: shard 0 builds alone so every jitted
-            # build program compiles exactly once (shards share shapes, so
-            # the rest hit the in-process executable cache), then the
-            # remaining shards overlap on worker threads.
+            # warm-one-then-fan-out: shard 0 builds alone and compiles every
+            # build program; the remaining shards then overlap on worker
+            # threads.  Executables are per device, so theirs come from the
+            # persistent cache when it is on (utils/cache.py; its key leaves
+            # out the device on the GPU) and are compiled again otherwise.
             results = [build_one(0)]
             with ThreadPoolExecutor(max_workers=_build_threads(n_shards - 1)) as ex:
                 results += list(ex.map(build_one, range(1, n_shards)))
@@ -948,7 +949,7 @@ def _shard_flat_scan(local, queries, metric, k_scan, fast):
         vecs = source_get(local, all_local[cs : cs + blk])
         kk = min(k_scan, vecs.shape[0])
         if binned:
-            bd, bc = binned_scan(queries, vecs, metric, tile_c=4096, exact=False)
+            bd, bc = binned_scan(queries, vecs, metric)
             dd, pos = jax.lax.approx_min_k(bd, kk)
             idx = jnp.take_along_axis(bc, pos, axis=-1) + cs
             idx = jnp.where(jnp.isfinite(dd), idx, EMPTY_ID).astype(ID_DTYPE)

@@ -268,7 +268,7 @@ def _quantize_binned_block(subs, centroids, metric: Metric, kk: int):
     from parallel_hnsw.ops.distance import batched_distance
     from parallel_hnsw.ops.pallas_scan import binned_scan
 
-    bd, bc = binned_scan(subs, centroids, metric, tile_c=4096, exact=False)
+    bd, bc = binned_scan(subs, centroids, metric)
     _, pos = jax.lax.approx_min_k(bd, kk)
     cand = jnp.take_along_axis(bc, pos, axis=-1)  # [B, kk] centroid ids
     cand_feats = jnp.take(centroids, cand, axis=0)  # [B, kk, dsub]
@@ -695,7 +695,7 @@ class QuantizedHnsw:
             if binned:
                 from parallel_hnsw.ops.pallas_scan import binned_scan
 
-                bd, bc = binned_scan(q, feats, metric, tile_c=4096, exact=False)
+                bd, bc = binned_scan(q, feats, metric)
                 dd, pos = jax.lax.approx_min_k(bd, k)
                 idx = jnp.take_along_axis(bc, pos, axis=-1) + offset
                 idx = jnp.where(jnp.isfinite(dd), idx, EMPTY_ID)

@@ -9,6 +9,7 @@ import pytest
 from parallel_hnsw.ops.distance import Metric, pairwise_distance
 from parallel_hnsw.ops.pallas_scan import (
     LANES,
+    TILE_C,
     chunked_folded_scan,
     fold_geometry,
     folded_scan,
@@ -24,6 +25,11 @@ RNG = np.random.default_rng(3)
 def _unit(n, d):
     x = RNG.normal(size=(n, d)).astype(np.float32)
     return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+def _bf16(a):
+    """``a`` rounded to bf16 and back: the inputs both routes scan."""
+    return jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32)
 
 
 def _numpy_binned(d, tile_c):
@@ -60,7 +66,7 @@ def test_xla_binned_scan_matches_numpy(c):
     y = jnp.asarray(_unit(c, 16))
     d = np.asarray(pairwise_distance(x, y, Metric.EUCLIDEAN))
     want_d, want_c = _numpy_binned(d, 256)
-    got_d, got_c = xla_binned_scan(x, y, Metric.EUCLIDEAN, tile_c=256, exact=True)
+    got_d, got_c = xla_binned_scan(x, y, Metric.EUCLIDEAN, tile_c=256)
     np.testing.assert_allclose(np.asarray(got_d), want_d, atol=1e-6)
     np.testing.assert_array_equal(np.asarray(got_c), want_c)
     # every reported column's distance matches the full matrix
@@ -73,10 +79,10 @@ def test_xla_binned_scan_matches_numpy(c):
 def test_pallas_interpret_matches_xla():
     """The binned scan is the fold with one tile per slot: the Triton
     kernel at ``n_slots = n_tiles`` reproduces ``xla_binned_scan``."""
-    x = jnp.asarray(_unit(16, 8))
-    y = jnp.asarray(_unit(300, 8))
+    x = _bf16(_unit(16, 8))
+    y = _bf16(_unit(300, 8))
     for metric in (Metric.COSINE, Metric.EUCLIDEAN):
-        ref = xla_binned_scan(x, y, metric, tile_c=256, exact=True)
+        ref = xla_binned_scan(x, y, metric, tile_c=256)
         got = triton_folded_scan(
             x, y, metric, tile_c=256, n_slots=2, block_q=16, interpret=True
         )
@@ -86,10 +92,10 @@ def test_pallas_interpret_matches_xla():
 def test_folded_scan_interpret_matches_xla_fold():
     """The kernel's slot minima == the XLA fold over per-tile bins,
     including the non-divisible tail (padding slots stay +inf)."""
-    x = jnp.asarray(_unit(16, 8))
-    y = jnp.asarray(_unit(1500, 8))  # 6 tiles of 256 -> n_slots=4 needs pad
+    x = _bf16(_unit(16, 8))
+    y = _bf16(_unit(1500, 8))  # 6 tiles of 256 -> n_slots=4 needs pad
     for metric in (Metric.COSINE, Metric.EUCLIDEAN, Metric.DOT):
-        ref = xla_folded_scan(x, y, metric, tile_c=256, n_slots=4, exact=True)
+        ref = xla_folded_scan(x, y, metric, tile_c=256, n_slots=4)
         got = triton_folded_scan(
             x, y, metric, tile_c=256, n_slots=4, block_q=16, interpret=True
         )
@@ -99,8 +105,8 @@ def test_folded_scan_interpret_matches_xla_fold():
 def test_folded_scan_true_neighbors_survive():
     """Every query's true nearest neighbor appears in its folded slab (it is
     the min of whatever class its column folds into)."""
-    x = jnp.asarray(_unit(24, 16))
-    y = jnp.asarray(_unit(3000, 16))
+    x = _bf16(_unit(24, 16))
+    y = _bf16(_unit(3000, 16))
     gt = np.asarray(
         jnp.argmin(pairwise_distance(x, y, Metric.EUCLIDEAN), axis=-1)
     )
@@ -119,10 +125,9 @@ def test_folded_scan_true_neighbors_survive():
 def test_triton_wrapper_pads_q_c_and_d(q, c, d):
     """Q pads to the query block, D to a power of two >= 16 and C to the
     slot geometry; none of it changes the result or its shape."""
-    x = jnp.asarray(RNG.normal(size=(q, d)).astype(np.float32))
-    y = jnp.asarray(RNG.normal(size=(c, d)).astype(np.float32))
-    ref = xla_folded_scan(x, y, Metric.SQUARED_EUCLIDEAN, tile_c=256, n_slots=3,
-                          exact=True)
+    x = _bf16(RNG.normal(size=(q, d)).astype(np.float32))
+    y = _bf16(RNG.normal(size=(c, d)).astype(np.float32))
+    ref = xla_folded_scan(x, y, Metric.SQUARED_EUCLIDEAN, tile_c=256, n_slots=3)
     got = triton_folded_scan(
         x, y, Metric.SQUARED_EUCLIDEAN, tile_c=256, n_slots=3, block_q=32,
         interpret=True,
@@ -139,7 +144,7 @@ def test_triton_kernel_bf16_operands():
     y = jnp.asarray(_unit(600, 32)).astype(jnp.bfloat16)
     ref = xla_folded_scan(
         x.astype(jnp.float32), y.astype(jnp.float32), Metric.EUCLIDEAN,
-        tile_c=256, n_slots=2, exact=True,
+        tile_c=256, n_slots=2,
     )
     got = triton_folded_scan(
         x, y, Metric.EUCLIDEAN, tile_c=256, n_slots=2, block_q=16,
@@ -159,7 +164,7 @@ def test_binned_topk_with_rerank_reaches_full_recall():
     gt = np.asarray(
         jnp.argsort(pairwise_distance(x, y, Metric.EUCLIDEAN), axis=-1)[:, :k]
     )
-    bin_d, bin_c = xla_binned_scan(x, y, Metric.EUCLIDEAN, tile_c=256, exact=True)
+    bin_d, bin_c = xla_binned_scan(x, y, Metric.EUCLIDEAN, tile_c=256)
     _, pos = jax.lax.top_k(-bin_d, k * oversample)
     cand = jnp.take_along_axis(bin_c, pos, axis=-1)
     d = batched_distance(x, jnp.take(y, cand, axis=0), Metric.EUCLIDEAN)
@@ -181,7 +186,7 @@ def test_xla_folded_scan_matches_numpy_fold():
     jj = d4.argmin(axis=2)
     want_d = np.take_along_axis(d4, jj[:, :, None, :], axis=2)[:, :, 0, :].reshape(12, -1)
     want_c = np.take_along_axis(c4, jj[:, :, None, :], axis=2)[:, :, 0, :].reshape(12, -1)
-    got_d, got_c = xla_folded_scan(x, y, Metric.EUCLIDEAN, tile_c=256, n_slots=2, exact=True)
+    got_d, got_c = xla_folded_scan(x, y, Metric.EUCLIDEAN, tile_c=256, n_slots=2)
     np.testing.assert_allclose(np.asarray(got_d), want_d, atol=1e-6)
     fin = np.isfinite(want_d)
     np.testing.assert_array_equal(np.asarray(got_c)[fin], want_c[fin])
@@ -205,48 +210,43 @@ def test_chunked_fold_stays_under_cap(cap_cols):
     reference, and no live block above the byte cap (a slot here spans
     1024 columns, so the two smaller caps fold within a slot)."""
     q = 8
-    x = jnp.asarray(_unit(q, 8))
-    y = jnp.asarray(_unit(3000, 8))  # 12 tiles of 256 -> 3 slots of 1024
+    x = _bf16(_unit(q, 8))
+    y = _bf16(_unit(3000, 8))  # 12 tiles of 256 -> 3 slots of 1024
     cap = q * cap_cols * 4
-    ref = xla_folded_scan(x, y, Metric.EUCLIDEAN, tile_c=256, n_slots=3, exact=True)
+    ref = xla_folded_scan(x, y, Metric.EUCLIDEAN, tile_c=256, n_slots=3)
 
     def run(a, b):
         return chunked_folded_scan(
-            a, b, Metric.EUCLIDEAN, tile_c=256, n_slots=3, exact=True,
-            block_bytes=cap,
+            a, b, Metric.EUCLIDEAN, tile_c=256, n_slots=3, block_bytes=cap
         )
 
     _assert_same_fold(run(x, y), ref, atol=1e-6)
     assert _largest_intermediate_bytes(run, x, y) <= max(cap, y.size * 4)
     unchunked = _largest_intermediate_bytes(
         lambda a, b: xla_folded_scan(a, b, Metric.EUCLIDEAN, tile_c=256,
-                                     n_slots=3, exact=True), x, y)
+                                     n_slots=3), x, y)
     assert unchunked > cap
 
 
 def test_scan_route_one_per_platform():
     assert scan_route("gpu") == "triton"
     assert scan_route("cpu") == "xla"
-    # off the GPU, folded_scan is the chunked XLA fold
-    x = jnp.asarray(_unit(8, 16))
-    y = jnp.asarray(_unit(700, 16))
-    got = folded_scan(x, y, Metric.COSINE, tile_c=256, n_slots=2, exact=True)
-    ref = xla_folded_scan(x, y, Metric.COSINE, tile_c=256, n_slots=2, exact=True)
+    # off the GPU, folded_scan is the chunked XLA fold at TILE_C
+    x = _bf16(_unit(8, 16))
+    y = _bf16(_unit(9000, 16))  # 3 tiles of TILE_C -> 2 slots, one padded
+    got = folded_scan(x, y, Metric.COSINE, n_slots=2)
+    ref = xla_folded_scan(x, y, Metric.COSINE, tile_c=TILE_C, n_slots=2)
     _assert_same_fold(got, ref, atol=1e-6)
 
 
 @pytest.mark.gpu
 def test_triton_fold_compiled_on_gpu_matches_reference(gpu):
-    """The kernel as compiled for the card, against the plain reference."""
+    """The kernel as compiled for the card, against the plain reference on
+    the same bf16-rounded inputs."""
     with jax.default_device(gpu):
-        x = jnp.asarray(_unit(300, 128))
-        y = jnp.asarray(_unit(50_000, 128))
-        for dt, atol in ((jnp.float32, 1e-4), (jnp.bfloat16, 1e-3)):
-            xs, ys = x.astype(dt), y.astype(dt)
-            got = triton_folded_scan(xs, ys, Metric.EUCLIDEAN, tile_c=2048,
-                                     n_slots=8)
-            ref = xla_folded_scan(xs.astype(jnp.float32), ys.astype(jnp.float32),
-                                  Metric.EUCLIDEAN, tile_c=2048, n_slots=8,
-                                  exact=True)
-            np.testing.assert_allclose(np.asarray(got[0]), np.asarray(ref[0]),
-                                       atol=atol)
+        x = _bf16(_unit(300, 128))
+        y = _bf16(_unit(50_000, 128))
+        got = triton_folded_scan(x, y, Metric.EUCLIDEAN, n_slots=8)
+        ref = xla_folded_scan(x, y, Metric.EUCLIDEAN, n_slots=8)
+        np.testing.assert_allclose(np.asarray(got[0]), np.asarray(ref[0]),
+                                   atol=1e-3)
